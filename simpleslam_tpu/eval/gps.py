@@ -5,7 +5,7 @@ WGS84 lla2ecef, ENU rotation about a fixed LLA origin, and RTK-fix gating
 (``gga == 4``) before a position is trusted as ground truth. The reference
 reads NavSatFix + GGA strings from a rosbag; this version consumes plain
 arrays (or an iterator of records) so any log format can feed it — ROS is
-deliberately not a dependency of the TPU build (SURVEY.md §7 I/O stance).
+deliberately not a dependency of this framework (SURVEY.md §7 I/O stance).
 """
 
 from __future__ import annotations

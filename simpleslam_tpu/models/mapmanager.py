@@ -12,7 +12,7 @@ Parity targets (``frontend/src/MapManager.cpp``):
   (:203-213),
 - ``set_cur_pose`` notifies a map update when moved > 1 m (:109-119).
 
-TPU re-architecture: keyframe clouds live as host numpy (they are
+Device re-architecture: keyframe clouds live as host numpy (they are
 persistence payloads); the submap is assembled on host (cheap, off the hot
 path) and shipped to the device once per update as a padded cloud, where the
 configured register builds its voxel-table target. Keyframe NN/radius
@@ -279,9 +279,9 @@ class MapManager:
         return native.voxel_downsample_first(xyz, self.grid_size)
 
     # -- device-resident keyframe store (streamed executor) -------------------
-    # Keyframe clouds live on device so submap rebuilds move only indices and
-    # poses over the host link; each cloud is uploaded exactly once at
-    # insertion. This is the TPU-shaped version of updateMap's keyframe
+    # Keyframe clouds live on device so submap rebuilds upload only indices
+    # and poses; each cloud is uploaded exactly once at insertion. This is
+    # the device-resident version of updateMap's keyframe
     # gather (MapManager.cpp:176-192), with the kd-tree radius search
     # replaced by a brute-force window select on host (K is small).
     def enable_device_store(self) -> None:
@@ -334,11 +334,11 @@ class MapManager:
     def update_map_device(self, defer_swap: bool = False) -> None:
         """Submap target rebuild on device (streamed-path update_map).
 
-        Rebuild policy (the round-4 device-budget fix): each build costs
-        ~17 ms of device time that competes with registration batches for
-        the single chip, and the reference's unconditional 1 m rebuild
-        cadence (MapManager.cpp:151-201) made builds ~70 % of the device
-        pipeline. A rebuild is deferred unless one of these holds:
+        Rebuild policy: each build is device time that competes with
+        registration batches for the one device, and the reference's
+        unconditional 1 m rebuild cadence (MapManager.cpp:151-201) would
+        rebuild far more often than coverage needs. A rebuild is deferred
+        unless one of these holds:
 
         - the anchor drifted > REBUILD_CENTER_SLACK from the built target's
           center (coverage: the dense window must keep queries inside it);

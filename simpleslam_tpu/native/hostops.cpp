@@ -1,4 +1,4 @@
-// Native host-runtime kernels for the TPU-native SLAM framework.
+// Native host-runtime kernels for the simpleslam_tpu SLAM framework.
 //
 // The reference implements its host runtime in C++ (pcp voxel filters
 // common/pcp/pcp.hpp:78-263, OpenMP cloud transform pcp.hpp:44-76, PCD/bag
@@ -200,9 +200,8 @@ int64_t voxel_downsample_centroid_pad(const float* xyz, int64_t n, float grid,
 // executor's bookkeeping (pipeline/streamed.py; the streamed hosts have few
 // cores, so intra-call parallelism beats Python-thread parallelism).
 // out: (n_scans, capacity, 3); out_counts: (n_scans). `threads` caps the
-// OpenMP width — the caller leaves one core free for the device-link
-// handling threads (saturating every core measurably inflates the
-// host<->device fetch latency on 2-core hosts).
+// OpenMP width — the caller leaves one core free for the thread that
+// dispatches device work and fetches its results.
 void voxel_downsample_centroid_pad_batch(
     const float* xyz, const int64_t* counts, int64_t n_scans, float grid,
     int64_t max_pts, int64_t capacity, float pad_coord, float* out,
@@ -222,12 +221,10 @@ void voxel_downsample_centroid_pad_batch(
 // Full producer prep in one call: downsample + spatial sort + int16
 // quantization (the streamed executor's upload format). Sorting each
 // scan's points by voxel key at `sort_grid` makes consecutive registration
-// queries hit neighboring HBM rows of the dense target (transaction
-// coalescing, ~6x on the merged-row gather); quantizing to
-// round(x / quant_scale) int16 (pad sentinel 32767) halves the upload
-// bytes. Doing all three here keeps the GIL released for the whole chunk —
-// the numpy equivalents measured ~16 ms of GIL-held work per 32-scan batch
-// on the 2-core streamed hosts.
+// queries hit neighboring rows of the dense target in device memory;
+// quantizing to round(x / quant_scale) int16 (pad sentinel 32767) halves
+// the upload bytes. Doing all three here keeps the GIL released for the
+// whole chunk, where the numpy equivalents would hold it.
 void voxel_downsample_sort_quant_batch(
     const float* xyz, const int64_t* counts, int64_t n_scans, float grid,
     int64_t max_pts, int64_t capacity, float sort_grid, float quant_scale,

@@ -1,1 +1,1 @@
-"""Device-side compute kernels (pure JAX / Pallas; all jittable, static shapes)."""
+"""Device-side compute kernels (pure JAX; all jittable, static shapes)."""

@@ -14,7 +14,7 @@ Behavioral parity targets (reference: /root/reference/common/geometry/):
   rotation axis is within ~18 deg of +/-Z (|axis.z| > 0.95).
 - ``correct_angles``: wrap to +/-pi about a reference (``Math.hpp:24-29``).
 
-Everything is float32-first (TPU native); all functions accept batched inputs
+Everything is float32-first; all functions accept batched inputs
 via vmap. Poses are 4x4 homogeneous matrices ("pose" below).
 """
 

@@ -1,6 +1,6 @@
 """NDT scan-to-map registration on Gaussian voxels (pclomp role).
 
-TPU-native equivalent of the vendored OpenMP NDT
+Device equivalent of the vendored OpenMP NDT
 (``third_parties/pclomp/src/pclomp/ndt_omp_impl.hpp``, used via
 ``PCR/src/NdtRegister.cpp`` with resolution 1.0; neighborhood widened to the
 full 27-cell cube — see NEIGHBORHOOD_OFFSETS below):
@@ -13,8 +13,8 @@ Redesign notes (not a translation):
   line search is replaced by adaptive LM damping, which vectorizes;
 - voxel lookups ride the DENSE Gaussian voxel grid (ops/voxel.py
   DenseGaussianVoxelMap) with a batched 27-cell neighborhood — lookup is
-  pure index arithmetic (the sorted-table searchsorted path costs ~30 ms
-  per 221k queries on real TPU hardware; the dense gather is ~0.3 ms);
+  pure index arithmetic (a sorted-table searchsorted is log2(V)
+  dependent gathers per query);
 - covariance conditioning follows pclomp's VoxelGridCovariance: eigenvalues
   below 0.01 * lambda_max are inflated to that floor.
 """
@@ -35,8 +35,8 @@ from .voxel import (DenseGaussianVoxelMap, _neighbor_offsets,
                     gather_gaussians_dense)
 
 # Neighborhood: the full 3^3 cube (pclomp's DIRECT26 + center). The reference
-# adapter picks DIRECT7 as a CPU-cost compromise (NdtRegister.cpp:13); on TPU
-# the gather is batched and the 4x wider support both smooths the objective
+# adapter picks DIRECT7 as a CPU-cost compromise (NdtRegister.cpp:13); on a
+# device the gather is batched and the 4x wider support both smooths the objective
 # and roughly doubles the convergence basin (validated on the lo-mode
 # pipeline: DIRECT7 stalls at ~0.2 m init error and diverges, DIRECT27
 # tracks at 0.15 m/scan prediction error indefinitely).
@@ -179,7 +179,7 @@ def score_only(src: PointCloud, gvm: DenseGaussianVoxelMap,
 
 
 # Line-search step fractions, evaluated as ONE batched (vmapped) score call
-# per iteration — the TPU replacement for pclomp's sequential More-Thuente
+# per iteration — the batched replacement for pclomp's sequential More-Thuente
 # search (ndt_omp_impl.hpp computeStepLengthMT). Over-relaxed entries (>1)
 # compensate for the conservative PSD GN step length.
 LINE_SEARCH_ALPHAS = (4.0, 2.0, 1.0, 0.5, 0.25, 0.1)
@@ -190,7 +190,7 @@ def align(src: PointCloud, target: NdtTarget, init_pose: jax.Array,
           max_iters: int = MAX_ITERS, axis_reduce=None) -> NdtResult:
     """Damped Newton + batched backtracking line search on the NDT score.
 
-    ``axis_reduce`` (multi-chip point sharding): a function psumming a flat
+    ``axis_reduce`` (multi-device point sharding): a function psumming a flat
     f32 vector over the mesh axis. Per Newton iteration the sharded path
     costs TWO collectives — one 44-float psum of (H, g, score, n) and one
     6-float psum of the line-search candidate scores (sequential because

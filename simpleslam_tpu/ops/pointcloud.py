@@ -3,7 +3,7 @@
 XLA wants static shapes, so clouds are (capacity, 3) float32 arrays plus a
 validity mask; padding lanes carry a far sentinel so they can never win a
 nearest-neighbor race. This replaces the reference's dynamic PCL containers
-(``common/types/PCLTypes.hpp``) the TPU way: capacity is a compile-time
+(``common/types/PCLTypes.hpp``) with static shapes: capacity is a compile-time
 constant per pipeline stage, masking does the rest.
 """
 
@@ -94,7 +94,7 @@ def transform(pc: PointCloud, pose: jax.Array) -> PointCloud:
 def compact(pc: PointCloud, out_capacity: Optional[int] = None) -> PointCloud:
     """Stable-move valid points to the front; optionally shrink capacity.
 
-    Implemented as a stable sort on the inverted mask — a TPU-friendly
+    Implemented as a stable sort on the inverted mask — a static-shape
     stream compaction.
     """
     out_capacity = out_capacity or pc.capacity

@@ -1,36 +1,53 @@
 """Analytic roofline model for the registration hot kernel.
 
-The reference's per-stage tictoc discipline (common/time/tictoc.hpp:29-62,
-sprinkled at every boundary) told its authors where CPU time went; the TPU
-equivalent must additionally say what the *chip* is doing — device-execute vs
-link-transfer vs host-idle — and whether the device time is anywhere near the
-hardware's speed of light. This module provides the FLOP/byte counts for the
-LOAM batch step so the bench can report an MFU estimate and an HBM-bandwidth
-utilization alongside the measured device time.
+The reference's per-stage tictoc discipline (common/time/tictoc.hpp:29-62)
+told its authors where CPU time went; on an accelerator the question is also
+whether the device time is anywhere near the hardware's speed of light. This
+module provides the FLOP/byte counts for the LOAM batch step and the card's
+published peaks, so the bench can report how far a measured device time is
+from the memory and compute bounds.
 
-Cost structure after the round-4 redesign: per candidate GATHER (~once per
-scan) each of the N query points reads ONE pre-merged slab row of W f32
-lanes from HBM (voxel.MergedDenseVoxelMap) and the 5-NN/plane-fit chain
-does ~45 VPU flops per candidate ONCE; each GN ITERATION then costs only
-~300 per-query flops against the frozen planes (loam.fit_planes /
-plane_normal_equations). There is no meaningful MXU work — the model
-exists to locate the kernel against the HBM bound, not to flatter it.
-
-Peaks are TPU v5e (the bench chip): 197 TFLOP/s bf16 MXU (f32 work measured
-against the same number states an upper bound on MFU honestly — f32 peak is
-lower), 819 GB/s HBM.
+Cost structure: per candidate GATHER (~once per scan) each of the N query
+points reads ONE pre-merged slab row of W values (voxel.MergedDenseVoxelMap)
+and the 5-NN/plane-fit chain does ~45 flops per candidate ONCE; each GN
+ITERATION then costs only ~300 per-query flops against the frozen planes
+(loam.fit_planes / plane_normal_equations). There is no matrix-unit work:
+the model exists to locate the kernel against the memory bound.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-V5E_PEAK_FLOPS = 197e12  # bf16 MXU peak (upper bound for any precision)
-V5E_HBM_BW = 819e9       # bytes/s
+# Published peaks keyed by the exact ``device_kind`` JAX reports. Source:
+# NVIDIA H100 Tensor Core GPU data sheet, SXM5 part, dense rates (no
+# sparsity) at the 700 W power limit. The program runs float32 matmuls at
+# "highest" precision (simpleslam_tpu/__init__.py), i.e. outside the tensor
+# cores, so utilization divides by ``fp32_flops``; the tensor-core rates are
+# listed beside it for reference.
+PEAKS: Dict[str, Dict[str, float]] = {
+    "NVIDIA H100 80GB HBM3": {
+        "fp32_flops": 67e12,
+        "tf32_flops": 495e12,
+        "bf16_flops": 989e12,
+        "hbm_bytes_per_s": 3.35e12,
+    },
+}
 
-# VPU flops per (query, candidate) lane of the normal-equation chain:
-# d2 (8: sub+mul+add x3 lanes fused) + 5 argmin rounds (~5x4: min, cmp,
-# cumsum lane, select) + centroid/scatter/eigen accumulation (~15) + masked
+
+def peaks(device_kind: str) -> Dict[str, float]:
+    """Peaks of one card; an unknown ``device_kind`` is an error, not a
+    default (a wrong peak makes every share in the report wrong)."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device_kind {device_kind!r}; add the "
+            f"card's data-sheet values to roofline.PEAKS") from None
+
+# flops per (query, candidate) pair of the normal-equation chain:
+# d2 (8: sub+mul+add x3 fused) + 5 argmin rounds (~5x4: min, cmp, cumsum,
+# select) + centroid/scatter/eigen accumulation (~15) + masked
 # residual/einsum contributions (~2). Order-of-magnitude deliberate: the
 # conclusion (memory-bound by >100x) is insensitive to +-2x here.
 _FLOPS_PER_CAND = 45
@@ -39,14 +56,14 @@ _FLOPS_PER_CAND = 45
 _FLOPS_PER_QUERY = 250
 
 
-def loam_batch_cost(n_queries: int, slab_rows: int, lane_width: int,
+def loam_batch_cost(n_queries: int, slab_rows: int, row_bytes: int,
                     slab_pts: int, n_scans: int, mean_iters: float,
                     mean_gathers: float) -> Dict[str, float]:
-    """FLOPs and HBM bytes of one streamed registration batch.
+    """FLOPs and device-memory bytes of one streamed registration batch.
 
     n_queries: padded query points per scan (the scan-row capacity)
-    slab_rows: HBM rows gathered per query (1 for the merged gather)
-    lane_width: f32 lanes per gathered row (8 * slab_pts * 3 merged)
+    slab_rows: rows gathered per query (1 for the merged gather)
+    row_bytes: bytes per gathered row (8 * slab_pts * 3 int16 merged)
     slab_pts: points stored per VOXEL (tpu.loam_slab_size)
     mean_iters / mean_gathers: measured per-scan GN iterations and gather
     refreshes. The candidate-axis flops are paid per GATHER (fit_planes);
@@ -54,7 +71,7 @@ def loam_batch_cost(n_queries: int, slab_rows: int, lane_width: int,
     """
     cand_pts = 8 * slab_pts
     gather_bytes = (n_scans * mean_gathers * n_queries
-                    * slab_rows * lane_width * 4.0)
+                    * slab_rows * float(row_bytes))
     flops = n_scans * n_queries * (
         mean_gathers * cand_pts * _FLOPS_PER_CAND
         + mean_iters * _FLOPS_PER_QUERY)
@@ -62,16 +79,18 @@ def loam_batch_cost(n_queries: int, slab_rows: int, lane_width: int,
             "cand_pts_per_query": float(cand_pts)}
 
 
-def utilization(cost: Dict[str, float], device_s: float) -> Dict[str, float]:
-    """MFU / HBM utilization / speed-of-light fraction for a measured time."""
+def utilization(cost: Dict[str, float], device_s: float,
+                device_kind: str) -> Dict[str, float]:
+    """FP32 FLOP share / memory-bandwidth share / speed-of-light fraction of
+    a measured device time, against ``device_kind``'s published peaks."""
+    pk = peaks(device_kind)
     if device_s <= 0:
-        return {"mfu": 0.0, "hbm_util": 0.0, "sol_frac": 0.0}
-    mfu = cost["flops"] / device_s / V5E_PEAK_FLOPS
-    hbm = cost["hbm_bytes"] / device_s / V5E_HBM_BW
-    sol_time = max(cost["flops"] / V5E_PEAK_FLOPS,
-                   cost["hbm_bytes"] / V5E_HBM_BW)
+        return {"fp32_flop_share": 0.0, "hbm_share": 0.0, "sol_frac": 0.0}
+    flop_t = cost["flops"] / pk["fp32_flops"]
+    mem_t = cost["hbm_bytes"] / pk["hbm_bytes_per_s"]
     return {
-        "mfu": round(mfu, 6),
-        "hbm_util": round(hbm, 4),
-        "sol_frac": round(sol_time / device_s, 4),
+        "fp32_flop_share": flop_t / device_s,
+        "hbm_share": mem_t / device_s,
+        "sol_frac": max(flop_t, mem_t) / device_s,
+        "bound": "memory" if mem_t >= flop_t else "compute",
     }

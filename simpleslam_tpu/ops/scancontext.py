@@ -4,8 +4,8 @@ Re-architecture of the reference's ScanContext plugin
 (``backend/src/ScanContext.cpp:56-278``, itself adapted from the IROS'18
 code): the polar BEV max-height descriptor becomes one scatter-max, ring-key
 retrieval becomes a brute-force distance + top-k (a 20-dim kd-tree over a few
-thousand keys is pointless on TPU — one (N,20) matmul-shaped reduction beats
-it), and the circular-shift alignment search becomes a batched roll + cosine
+thousand keys is pointless on a device — one (N,20) matmul-shaped reduction
+replaces it), and the circular-shift alignment search becomes a batched roll + cosine
 column distance evaluated for ALL 60 shifts at once.
 
 Deviations from the reference, both strictly-better simplifications:

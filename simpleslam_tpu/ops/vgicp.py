@@ -1,6 +1,6 @@
 """Voxelized GICP registration (FastVGICP role) + PCL-style fitness score.
 
-TPU-native equivalent of the vendored ``fast_gicp::FastVGICP``
+Device equivalent of the vendored ``fast_gicp::FastVGICP``
 (``third_parties/pclomp/src/pclomp/fast_vgicp_impl.hpp`` behind
 ``PCR/src/VgicpRegister.cpp``): per-source-point covariances (kNN=20,
 plane-regularized), target accumulated into Gaussian voxels, and a
@@ -8,7 +8,7 @@ distribution-to-distribution Mahalanobis cost minimized by damped GN over
 SE(3). The reference's LsqRegistration GN/LM loop becomes a
 ``lax.while_loop``; correspondences are center-voxel lookups (DIRECT1, the
 fast_gicp default) on the dense Gaussian voxel grid (index arithmetic, no
-key search — see ops/voxel.py on why this matters on TPU).
+key search — see ops/voxel.py).
 
 The fitness score reproduces PCL ``Registration::getFitnessScore`` semantics
 (mean squared NN distance of the aligned source against the raw target
@@ -79,13 +79,11 @@ def build_target(submap: PointCloud, resolution, center: jax.Array,
     # spatial resolution of the registration grid — the fitness threshold
     # (0.3 on mean squared NN distance, LoopClosureManager.cpp:97-106)
     # discriminates aligned (~0.01) from misaligned (>1) clouds, so 2 m
-    # voxels lose nothing while the build touches 1/4 the voxel rows (the
-    # map build cost scales with the grid, not the points — measured ~28 ms
-    # per loop-closure candidate at full resolution). Narrow 64-lane rows:
-    # slab 16 needs 48 f32 lanes; 128 lanes would double the HBM.
+    # voxels lose nothing while the build touches 1/8 the voxel rows (the
+    # map build cost scales with the grid, not the points).
     fdims = (max(dims[0] // 2, 1), max(dims[1] // 2, 1), max(dims[2] // 2, 1))
     pts = build_dense_voxel_map(submap, resolution * 2.0, center, fdims,
-                                slab_size=16, lane_quantum=64)
+                                slab_size=16)
     return VgicpTarget(gauss, pts)
 
 
@@ -105,7 +103,7 @@ def source_covariances(src: PointCloud):
     """Per-source-point plane-regularized covariances from the local
     neighborhood (fast_gicp calculate_covariances role).
 
-    TPU redesign: instead of exact kNN=20 (kd-tree pointer chasing), the
+    Device redesign: instead of exact kNN=20 (kd-tree pointer chasing), the
     scatter of ALL neighbors within a +-2 m window feeds the covariance —
     the subsequent PLANE regularization keeps only the eigenvector frame,
     for which the radius neighborhood is as good as the kNN one. One dense
@@ -167,7 +165,7 @@ def _align_impl(src: PointCloud, src_covs, src_valid, target: VgicpTarget,
     Identical iterates to the step-then-cost-eval form, half the device
     work; matters most in LC mode (up to 100 iterations per candidate).
 
-    ``axis_reduce`` (multi-chip point sharding): psums a flat f32 vector
+    ``axis_reduce`` (multi-device point sharding): psums a flat f32 vector
     over the mesh axis — ONE 44-float psum of (H, g, cost, n) per GN
     iteration, plus two floats for the fitness score at the end."""
 

@@ -1,7 +1,7 @@
-"""Multi-chip sharding: mesh helpers, sharded registration, distributed BA.
+"""Multi-device sharding: mesh helpers, sharded registration, distributed BA.
 
 No reference counterpart (the C++ system is single-process; SURVEY.md §2.3):
-this layer is the TPU build's own scaling story — point-parallel registration
-and keyframe-sharded pose-graph solves over ``jax.sharding.Mesh`` with ICI
+this layer is the framework's own scaling story — point-parallel registration
+and edge-sharded pose-graph solves over ``jax.sharding.Mesh`` with XLA
 collectives inside ``shard_map``.
 """

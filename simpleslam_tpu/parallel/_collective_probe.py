@@ -1,9 +1,10 @@
 """Worker: measure cross-host psum latency/bandwidth on the harness.
 
 Used by benchmarks/bench_scaling.py to decompose solve time into per-shard
-compute vs collective cost (the gRPC DCN stand-in is ~100x slower per
-collective than real ICI, so measured wall-clock efficiency on the CPU
-harness must be corrected by this probe to say anything about a pod slice).
+compute vs collective cost (a gRPC collective between CPU processes is far
+slower than one over a device interconnect, so measured wall-clock
+efficiency on the CPU harness must be corrected by this probe to say
+anything about accelerator hosts).
 """
 
 from __future__ import annotations

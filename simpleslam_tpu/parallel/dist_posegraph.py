@@ -1,12 +1,13 @@
-"""Distributed pose-graph BA: edges sharded over the mesh, ICI reductions.
+"""Distributed pose-graph BA: edges sharded over the mesh, XLA collectives.
 
 The scaling component demanded by BASELINE.json (no reference counterpart —
 the reference is single-process GTSAM). Design: the O(E) work (per-edge
 linearization, 6x6 block einsums, edge-wise H·v matvecs) is partitioned over
-the ``kf`` mesh axis; the O(K) replicated state (pose estimates, CG vectors,
+the ``kf`` mesh axis; the O(K) state (pose estimates, CG vectors,
 block-Jacobi preconditioner — a few hundred KB even at 2048 keyframes) is
-kept replicated so each CG iteration costs exactly one psum of (K,6) over
-ICI. This is the Schur-free formulation of distributed BA: for pose-graph
+kept replicated, so the solve needs only small collectives (see
+``ops.posegraph.solve_impl`` for the three modes and how many each issues).
+This is the Schur-free formulation of distributed BA: for pose-graph
 problems (every factor binary in poses) the normal equations ARE the reduced
 camera system, so block elimination degenerates to the edge-parallel matvec
 implemented here.
@@ -14,8 +15,8 @@ implemented here.
 Partitioning edges (not keyframes) keeps the gather ``v[edge_i]`` local —
 keyframe-sharded layouts need a halo exchange per matvec; edge-sharded
 layouts need none, at the cost of replicating the (small) state. At SLAM
-scales (K <= 10^4) the replicated state fits any chip's VMEM budget and the
-psum is latency-, not bandwidth-bound: the right trade for ICI.
+scales (K <= 10^4) the replicated state is a few MB and every collective is
+latency-, not bandwidth-bound.
 """
 
 from __future__ import annotations

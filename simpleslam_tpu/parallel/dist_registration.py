@@ -2,7 +2,7 @@
 
 The scan's points are sharded across the ``dp`` mesh axis; every device
 computes the normal-equation contribution of its point shard against a
-replicated map, and the 6x6 / 6-vector reductions ride ICI ``psum`` — the
+replicated map, and the 6x6 / 6-vector reductions ride one ``psum`` — the
 canonical "big batched residual + tiny reduced state" SPMD pattern
 (SURVEY.md §2.3 north star: batched registration data-parallel over points).
 """
@@ -26,8 +26,8 @@ def sharded_scan2map(mesh: Mesh, axis: str = "dp", max_iters: int = loam.MAX_ITE
     ``loam.gn_loop`` (incl. its cached-gather refresh policy, which stays
     replicated because pose and anchor are replicated); the per-iteration
     normal equations ride ONE fused psum of 43 floats — JtJ (36) + JtE (6) +
-    n_valid — because over DCN/gRPC the collective cost is per-launch
-    latency, not payload.
+    n_valid — because a small collective's cost is per-launch latency,
+    not payload.
     """
 
     def fused_psum(JtJ, JtE, n_valid):

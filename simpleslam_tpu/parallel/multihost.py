@@ -1,18 +1,17 @@
 """Multi-host execution layer: ``jax.distributed`` + a multi-process harness.
 
 The reference is single-process (SURVEY.md §2.3: no distributed code of any
-kind); this layer is the framework's own north-star component demanded by
-BASELINE.json ("sharded across a multi-host TPU pod slice"). Responsibilities:
+kind); this layer is the framework's own multi-host component demanded by
+the original brief (BASELINE.json). Responsibilities:
 
 - ``init_distributed``: one-call ``jax.distributed.initialize`` wrapper a
-  pod-slice deployment uses on every host before building meshes. On real
-  TPU pods the coordinator/process counts come from the scheduler; here they
-  are explicit arguments.
+  multi-host deployment uses on every host before building meshes; the
+  coordinator address and process counts are explicit arguments.
 - ``global_mesh`` / ``make_global_array``: build a mesh spanning every
   process's devices and assemble globally-sharded arrays from process-local
   shards (the multi-host analogue of ``jax.device_put`` — each host only
-  touches its own partition; collectives ride ICI within a host and DCN
-  across hosts exactly as XLA lays them out).
+  touches its own partition; collectives ride the device interconnect
+  within a host and the network across hosts, as XLA lays them out).
 - ``run_hosts``: a subprocess launcher that simulates an N-host deployment
   on CPU (SURVEY.md §4: "simulate multi-host with jax.distributed
   multi-process CPU"). Each simulated host is one OS process with its own

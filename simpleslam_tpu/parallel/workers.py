@@ -134,8 +134,7 @@ def registration_worker(payload: Dict[str, Any], num_processes: int,
         mh.make_global_array(mask, mesh, P()))
     # the FAST single-chip map: dense grid + corner gather (grid 2.0 >= 2 *
     # search radius, ops/voxel.py gather_neighbors_corner). The dense slab
-    # replicates per device (16*16*8 rows x 128 lanes x 4 B ~ 1 MB here;
-    # ~50 MB at production dims — well inside per-chip HBM).
+    # replicates per device (16*16*8 rows x 48 f32 ~ 0.4 MB here).
     vm = vox.build_dense_voxel_map(map_pc, 2.0, jnp.zeros(3, jnp.float32),
                                    dims=(16, 16, 8), slab_size=16)
 

@@ -146,6 +146,38 @@ def make_world(seed: int = 0, extent: float = 120.0, n_buildings: int = 24) -> W
     return w
 
 
+def make_courtyard(radius: float, seed: int = 0,
+                   ring_frac: float = 1.0) -> World:
+    """Ring of 10 buildings around a circular loop of ``radius`` centered at
+    (0, radius) — the trajectory circle of ``make_trajectory`` — so
+    close-range structure is visible from every point of the loop and a
+    small loop closes with registration converged. ``ring_frac`` < 1 leaves
+    an open 'plaza' sector with no nearby structure, where registration is
+    weakly constrained and genuine odometric drift accumulates."""
+    rng = np.random.default_rng(seed)
+    w = World()
+    cx0, cy0 = 0.0, radius  # trajectory circle center
+    e = 40.0
+    w.rects.append(Rect(2, 0.0, (-e, e, -e, e)))  # ground
+    for k in (0, 1):
+        for off in (-e, e):
+            w.rects.append(Rect(k, off, (-e, e, 0.0, 6.0)))
+    for ang in np.linspace(0, 2 * np.pi * ring_frac, 10, endpoint=False):
+        rr = radius + 8.0 + rng.uniform(0, 4)
+        cx = cx0 + rr * np.cos(ang + rng.uniform(-0.1, 0.1))
+        cy = cy0 + rr * np.sin(ang + rng.uniform(-0.1, 0.1))
+        sx, sy = rng.uniform(4, 8, size=2)
+        h = rng.uniform(4, 10)
+        x0, x1 = cx - sx / 2, cx + sx / 2
+        y0, y1 = cy - sy / 2, cy + sy / 2
+        w.rects.append(Rect(0, x0, (y0, y1, 0.0, h)))
+        w.rects.append(Rect(0, x1, (y0, y1, 0.0, h)))
+        w.rects.append(Rect(1, y0, (x0, x1, 0.0, h)))
+        w.rects.append(Rect(1, y1, (x0, x1, 0.0, h)))
+        w.rects.append(Rect(2, h, (x0, x1, y0, y1)))
+    return w
+
+
 def make_loop_world(seed: int = 0, radius: float = 40.0,
                     extent: float = 80.0, n_buildings: int = 64,
                     corridor: float = 9.0) -> World:
@@ -280,7 +312,7 @@ def make_forest_world(seed: int = 0, extent: float = 100.0,
     """Park/forest world: tree trunks (CURVED surfaces) with vegetation
     canopies (probabilistic scatter), sparse buildings, ground + walls.
 
-    The anti-self-confirmation world (VERDICT r4 #4): planar rectangles are
+    The anti-self-confirmation world: planar rectangles are
     exactly what a point-to-plane pipeline is best at; real park recordings
     (the reference's Zhengzhou/Binhai bags are parks) are dominated by
     trunks and foliage where local plane fits are curved or fuzzy."""
@@ -586,6 +618,50 @@ def simulate_sequence(world: World, n_scans: int = 200, dt: float = 0.1,
     return SensorStreams(stamps, scans, poses, w_stamps, wheel_poses, i_stamps, quats)
 
 
+def spiral_sequence(world: World, n_scans: int, r0: float,
+                    lap_gap: float = 1.8, step: float = 0.3,
+                    n_az: int = 900, n_el: int = 16, noise: float = 0.01,
+                    seed: int = 0) -> SensorStreams:
+    """Outward spiral r = r0 + lap_gap * theta / 2pi around (0, r0), scans
+    ``step`` meters apart, lidar only. Every lap revisits the previous one's
+    structures ~lap_gap to the side, so keyframes KEEP being admitted past
+    the 1 m nearest-keyframe gate and loop closure sees a sustained revisit
+    stream (an exact retrace of a circle stops producing keyframes, and so
+    closure candidates, after lap one)."""
+    rng = np.random.default_rng(seed)
+    c = lap_gap / (2 * np.pi)
+    # angle table covering the arc length n_scans * step: the arc is at
+    # least r0 * th + c * th^2 / 2, so this th_max (plus 1 %) reaches it
+    arc = n_scans * step
+    th_max = (np.sqrt(r0 ** 2 + 2 * c * arc) - r0) / c
+    th_fine = np.linspace(0, 1.01 * th_max, 40000)
+    r_fine = r0 + c * th_fine
+    s_fine = np.concatenate([[0.0], np.cumsum(
+        np.sqrt(r_fine[:-1] ** 2 + c ** 2) * np.diff(th_fine))])
+    th = np.interp(np.arange(n_scans) * step, s_fine, th_fine)
+    r = r0 + c * th
+    x = r * np.sin(th)
+    y = r0 - r * np.cos(th)
+    yaw = np.unwrap(np.arctan2(np.gradient(y), np.gradient(x)))
+    poses = np.tile(np.eye(4), (n_scans, 1, 1))
+    poses[:, 0, 0] = np.cos(yaw)
+    poses[:, 0, 1] = -np.sin(yaw)
+    poses[:, 1, 0] = np.sin(yaw)
+    poses[:, 1, 1] = np.cos(yaw)
+    poses[:, 0, 3] = x
+    poses[:, 1, 3] = y
+    stamps = np.arange(n_scans) * 0.1
+    scans = [simulate_scan(world, sensor_from_body(poses[i]), n_az=n_az,
+                           n_el=n_el, noise=noise, rng=rng)
+             for i in range(n_scans)]
+    # ground truth in the map frame the SLAM run builds (its first body
+    # pose): the spiral starts with yaw -atan(c / r0), not 0, and scoring
+    # world-frame poses would charge that rotation to the estimate
+    gt = np.einsum("ab,nbc->nac", np.linalg.inv(poses[0]), poses)
+    return SensorStreams(stamps, scans, gt, np.zeros(0),
+                         np.zeros((0, 4, 4)), np.zeros(0), np.zeros((0, 4)))
+
+
 def _interp_planar(stamps: np.ndarray, poses: np.ndarray, t: np.ndarray) -> np.ndarray:
     """Interpolate (x, y, yaw) of body poses at times t (yaw unwrapped)."""
     x = np.interp(t, stamps, poses[:, 0, 3])
@@ -660,6 +736,22 @@ def ate_rmse(gt: np.ndarray, est: np.ndarray, align: bool = True) -> float:
     if align and len(g) >= 3:
         e = _umeyama_align(e, g)
     return float(np.sqrt(np.mean(np.sum((g - e) ** 2, axis=1))))
+
+
+def kf_ate_rmse(streams: SensorStreams, kf_stamps: np.ndarray,
+                kf_poses: np.ndarray) -> float:
+    """ATE over the OPTIMIZED KEYFRAME trajectory — the reference's actual
+    evaluation artifact (the keyframe TUM written at shutdown,
+    /root/reference/backend/src/Backend.cpp:349-358). Keyframes are scans,
+    so ground truth is looked up by nearest stamp in the full stream."""
+    if kf_stamps is None or len(kf_stamps) < 2:
+        return float("nan")
+    st = streams.scan_stamps
+    idx = np.clip(np.searchsorted(st, kf_stamps), 0, len(st) - 1)
+    idx = np.where(
+        (idx > 0) & (np.abs(st[idx - 1] - kf_stamps)
+                     < np.abs(st[idx] - kf_stamps)), idx - 1, idx)
+    return ate_rmse(streams.gt_poses[idx], kf_poses, align=False)
 
 
 def rpe_rmse(gt: np.ndarray, est: np.ndarray, delta: int = 1) -> float:

@@ -25,7 +25,7 @@ def _strip_comments(text: str) -> str:
 
 DEFAULT_PARAMS: dict = {
     "mode": "lo",  # "lo" (lidar-only) or "lio" (EKF wheel+imu local odometry)
-    "cores": 4,  # kept for config parity; TPU kernels ignore it
+    "cores": 4,  # kept for config parity; device kernels ignore it
     "downSampleVoxelGridSize": 0.5,
     "pcd_file": "",
     "saveMapDir": "",
@@ -68,11 +68,12 @@ DEFAULT_PARAMS: dict = {
     # reference disables its _removeDegeneratePart (ops/loam.py rationale).
     "frontend": {"pcr": "loam", "local_size": 100, "global_size": 10,
                  "planar_clamp": True, "degeneracy_guard": False},
-    # TPU-native capacity knobs (no reference counterpart): static shapes
-    # everything is padded to. Chosen so XLA compiles each kernel once.
+    # capacity knobs (no reference counterpart; "tpu" is a historical
+    # name): static shapes everything is padded to, chosen so XLA
+    # compiles each kernel once.
     "tpu": {
-        # multi-chip execution: > 0 runs the streamed pipeline on a device
-        # mesh of that many chips — registration shards scan points ("dp"
+        # multi-device execution: > 0 runs the streamed pipeline on a device
+        # mesh of that many devices — registration shards scan points ("dp"
         # axis, fused psum per GN iteration), the backend solves the pose
         # graph edge-sharded. 0 = single device.
         "mesh_devices": 0,

@@ -2,7 +2,7 @@
 
 The reference's observability is tictoc prints at stage boundaries
 (SURVEY.md §5 "Tracing/profiling"; e.g. PCR/src/LoamRegister.cpp:110-111).
-The TPU equivalent is a real profiler: ``trace(out_dir)`` captures an XLA
+The device equivalent is a real profiler: ``trace(out_dir)`` captures an XLA
 device trace viewable in TensorBoard/Perfetto, and ``annotate(name)`` wraps
 host-side stages in ``jax.profiler.TraceAnnotation`` so pipeline stages show
 up on the trace timeline alongside the kernels they launch.

@@ -4,7 +4,7 @@ The reference ships a re-implemented liorf/LIO-SAM scan2map run on the SAME
 scan/submap/init-pose fixtures to show its Lie-group (SE(3) exp) update is at
 least as good as the original LOAM Euler-angle update
 (``/root/reference/test/comp/liorf_scan2map.cpp:92-96``, README.md:33). This
-is the TPU-native equivalent head-to-head: both optimizers share the same
+is the equivalent head-to-head: both optimizers share the same
 candidate gather, plane fits, weights, and thresholds (ops/loam.py); they
 differ ONLY in the update parametrization —
 

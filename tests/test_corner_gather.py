@@ -55,8 +55,7 @@ def test_merged_vs_corner_candidate_parity(rng):
     q_mask = jnp.ones((len(queries),), bool)
 
     dm = vox.build_dense_voxel_map(pc, 2.0, jnp.zeros(3, jnp.float32),
-                                   (16, 16, 16), slab_size=64,
-                                   lane_quantum=1)
+                                   (16, 16, 16), slab_size=64)
     mm = vox.build_merged_dense_voxel_map(pc, 2.0, jnp.zeros(3, jnp.float32),
                                           (16, 16, 16), slab_size=64)
     c_cor, ok_cor = vox.gather_neighbors_corner(dm, q, q_mask)

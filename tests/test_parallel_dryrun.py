@@ -32,8 +32,10 @@ def reg_fixture():
 
 
 def test_dryrun_multichip_entrypoint():
+    import os
     import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     import __graft_entry__ as ge
 
     fn, args = ge.entry()

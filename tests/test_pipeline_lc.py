@@ -8,10 +8,11 @@ a loop-closure factor entered the graph, the accepted between matches the
 ground-truth relative pose, and the post-solve keyframe trajectory is no
 worse than the raw odometry at the same stamps.
 
-World: a 'courtyard' ring of buildings around a small circular loop —
-close-range structure keeps scan-to-map registration converged on a loop
-small enough to close within test budget (the default park world is empty
-near the origin, so small loops drift unrecoverably there).
+World: ``simulate.make_courtyard``, a ring of buildings around a small
+circular loop — close-range structure keeps scan-to-map registration
+converged on a loop small enough to close within test budget (the default
+park world is empty near the origin, so small loops drift unrecoverably
+there).
 """
 
 import numpy as np
@@ -25,36 +26,6 @@ from simpleslam_tpu.utils.config import Params
 RADIUS = 8.0
 SPEED = 3.0
 N_SCANS = 200  # theta = SPEED*t/RADIUS = 7.5 rad > 2*pi: the loop closes
-
-
-def make_courtyard(radius: float, seed: int = 0,
-                   ring_frac: float = 1.0) -> sim.World:
-    """Ring of 10 buildings around the loop center (close-range structure
-    visible from every point of the trajectory). ``ring_frac`` < 1 leaves an
-    open 'plaza' sector with no nearby structure, where registration is
-    weakly constrained and genuine odometric drift accumulates."""
-    rng = np.random.default_rng(seed)
-    w = sim.World()
-    cx0, cy0 = 0.0, radius  # trajectory circle center
-    e = 40.0
-    w.rects.append(sim.Rect(2, 0.0, (-e, e, -e, e)))  # ground
-    for k in (0, 1):
-        for off in (-e, e):
-            w.rects.append(sim.Rect(k, off, (-e, e, 0.0, 6.0)))
-    for ang in np.linspace(0, 2 * np.pi * ring_frac, 10, endpoint=False):
-        rr = radius + 8.0 + rng.uniform(0, 4)
-        cx = cx0 + rr * np.cos(ang + rng.uniform(-0.1, 0.1))
-        cy = cy0 + rr * np.sin(ang + rng.uniform(-0.1, 0.1))
-        sx, sy = rng.uniform(4, 8, size=2)
-        h = rng.uniform(4, 10)
-        x0, x1 = cx - sx / 2, cx + sx / 2
-        y0, y1 = cy - sy / 2, cy + sy / 2
-        w.rects.append(sim.Rect(0, x0, (y0, y1, 0.0, h)))
-        w.rects.append(sim.Rect(0, x1, (y0, y1, 0.0, h)))
-        w.rects.append(sim.Rect(1, y0, (x0, x1, 0.0, h)))
-        w.rects.append(sim.Rect(1, y1, (x0, x1, 0.0, h)))
-        w.rects.append(sim.Rect(2, h, (x0, x1, y0, y1)))
-    return w
 
 
 @pytest.fixture(scope="module")
@@ -80,7 +51,7 @@ def lc_run():
                                         "searchRatio": 0.1}},
         },
     })
-    world = make_courtyard(RADIUS, seed=0)
+    world = sim.make_courtyard(RADIUS, seed=0)
     streams = sim.cache_streams(
         "lc_courtyard", lambda: sim.simulate_sequence(
             world, n_scans=N_SCANS, seed=2, radius=RADIUS, speed=SPEED,

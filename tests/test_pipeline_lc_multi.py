@@ -12,44 +12,7 @@ from simpleslam_tpu.pipeline import app, simulate as sim
 from simpleslam_tpu.pipeline.streamed import run_streamed
 from simpleslam_tpu.utils.config import Params
 
-from test_pipeline_lc import RADIUS, make_courtyard, _gt_pose_at
-
-
-def _spiral_streams(world, n_scans: int, r0: float = 7.0,
-                    lap_gap: float = 1.8, step: float = 0.33,
-                    seed: int = 2) -> sim.SensorStreams:
-    """Outward spiral around the courtyard center: every lap revisits the
-    same structures ~lap_gap to the side, so keyframes KEEP being admitted
-    (an exact retrace stays within the 1 m nearest-KF gate and stops
-    producing contexts after lap one — no revisit stream, no closures)."""
-    rng = np.random.default_rng(seed)
-    c = lap_gap / (2 * np.pi)
-    # arc-length parametrization of r = r0 + c*theta about center (0, r0)
-    th_fine = np.linspace(0, 7.2 * np.pi, 20000)
-    r_fine = r0 + c * th_fine
-    s_fine = np.concatenate([[0.0], np.cumsum(
-        np.sqrt(r_fine[:-1] ** 2 + c ** 2) * np.diff(th_fine))])
-    s_want = np.arange(n_scans) * step
-    th = np.interp(s_want, s_fine, th_fine)
-    r = r0 + c * th
-    x = r * np.sin(th)
-    y = r0 - r * np.cos(th)
-    yaw = np.arctan2(np.gradient(y), np.gradient(x))
-    yaw = np.unwrap(yaw)
-    poses = np.tile(np.eye(4), (n_scans, 1, 1))
-    poses[:, 0, 0] = np.cos(yaw)
-    poses[:, 0, 1] = -np.sin(yaw)
-    poses[:, 1, 0] = np.sin(yaw)
-    poses[:, 1, 1] = np.cos(yaw)
-    poses[:, 0, 3] = x
-    poses[:, 1, 3] = y
-    stamps = np.arange(n_scans) * 0.1
-    scans = [sim.simulate_scan(world, sim.sensor_from_body(poses[i]),
-                               n_az=720, n_el=12, noise=0.03, rng=rng)
-             for i in range(n_scans)]
-    return sim.SensorStreams(stamps, scans, poses, np.zeros(0),
-                             np.zeros((0, 4, 4)), np.zeros(0),
-                             np.zeros((0, 4)))
+from test_pipeline_lc import RADIUS, _gt_pose_at
 
 
 @pytest.fixture(scope="module")
@@ -79,11 +42,13 @@ def multi_loop_run():
                                         "searchRatio": 0.1}},
         },
     })
-    world = make_courtyard(RADIUS, seed=0)
+    world = sim.make_courtyard(RADIUS, seed=0)
     # 400 scans = ~2.3 spiral laps: same sustained revisit density, ~30 %
     # less inline backend service time than the original 540
     streams = sim.cache_streams(
-        "lc_spiral400", lambda: _spiral_streams(world, n_scans=400))
+        "lc_spiral400", lambda: sim.spiral_sequence(
+            world, n_scans=400, r0=7.0, step=0.33, n_az=720, n_el=12,
+            noise=0.03, seed=2))
     system = app.SlamSystem()
     # 32-scan batches: halves per-batch host overhead on this long fixture
     # (the bench's production setting; assertions are batch-size-agnostic)

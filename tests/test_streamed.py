@@ -1,6 +1,6 @@
 """Streamed executor: parity with the classic per-scan path (lo mode).
 
-The streamed executor (pipeline/streamed.py) is the TPU-latency-aware
+The streamed executor (pipeline/streamed.py) is the device-resident
 odometry loop: device-resident pose chain, one host sync per batch. Its
 trajectory must match the classic reference-faithful path's quality; its
 keyframe/map bookkeeping must function with batch lag."""
